@@ -1,7 +1,7 @@
-"""bayes_drt_tpu: TPU-native (JAX/XLA/Pallas) hierarchical Bayesian DRT/DDT inversion.
+"""bayes_drt_tpu: batched (JAX/XLA) hierarchical Bayesian DRT/DDT inversion.
 
 A from-scratch rebuild of the capabilities of jdhuang-csm/bayes-drt
-(reference: /root/reference) designed TPU-first:
+designed for accelerators:
 
 - RBF kernel matrices (A', A'', L, M) built as vectorized XLA quadrature
   (reference: bayes_drt/matrices.py).

@@ -23,6 +23,7 @@ reference's peak-fit workflow, peak_fit.py:76-128).
 from __future__ import annotations
 
 import argparse
+import csv
 import glob
 import os
 import sys
@@ -44,6 +45,23 @@ def _expand_paths(paths, pattern):
             seen.add(f)
             out.append(f)
     return out
+
+
+def _write_csv(path, rows):
+    """Write a list of dicts as CSV; columns are the union of the keys in
+    first-seen order, and a key missing from a row is written empty."""
+    fields = list(dict.fromkeys(k for row in rows for k in row))
+    with open(path, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=fields)
+        w.writeheader()
+        w.writerows(rows)
+
+
+def _write_columns(path, cols):
+    """Write equal-length 1-D arrays as the columns of a CSV."""
+    arrs = [np.asarray(v, float) for v in cols.values()]
+    _write_csv(path, [dict(zip(cols, map(float, vals)))
+                      for vals in zip(*arrs)])
 
 
 def _eval_tau(tau_basis, n_points):
@@ -84,8 +102,8 @@ def _fit_parser(sub):
                         "production default")
     p.add_argument("--quality", choices=("fast", "strict"), default=None,
                    help="named sampler preset (sample mode): 'fast' = the "
-                        "measured production config, 'strict' = the "
-                        "calibrated-interval config (docs/PERFORMANCE.md)")
+                        "production config, 'strict' = the "
+                        "calibrated-interval config (PERF.md)")
     p.add_argument("--no-escalate", action="store_true",
                    help="disable the mixing-gate escalation refit of "
                         "under-mixed spectra (sample mode)")
@@ -108,14 +126,11 @@ def _fit_parser(sub):
 
 
 def cmd_fit(args):
-    # persistent XLA compile cache: a serving sweep must not pay the
-    # multi-minute cold compile on every invocation (same setup bench.py
-    # uses; override the location with JAX_COMPILE_CACHE_DIR)
-    import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ.get("JAX_COMPILE_CACHE_DIR",
-                                     "/tmp/jax_compile_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+    # persistent XLA compile cache: a serving sweep must not pay the cold
+    # compile on every invocation (JAX_COMPILATION_CACHE_DIR overrides the
+    # location)
+    from .progcache import enable_compile_cache
+    enable_compile_cache()
     from .native import load_spectra
     from .parallel import (evaluate_gamma, fit_spectra_batch, make_mesh,
                            ridge_fit_spectra_batch)
@@ -200,15 +215,13 @@ def cmd_fit(args):
         ln_tau = np.log(tau_eval)
         resid = _median_rel_residuals(freq, Zb, res)
 
-        import pandas as pd
         for i, path in enumerate(paths):
             stem = os.path.splitext(os.path.basename(path))[0]
             cols = {"tau": tau_eval, "gamma": gammas[i]}
             if args.mode == "sample":
                 cols["gamma_lo"] = lo[i]
                 cols["gamma_hi"] = hi[i]
-            pd.DataFrame(cols).to_csv(
-                os.path.join(args.out, f"Gout_{stem}.csv"), index=False)
+            _write_columns(os.path.join(args.out, f"Gout_{stem}.csv"), cols)
             rp = float(np.trapezoid(gammas[i], ln_tau))
             row = {
                 "file": os.path.basename(path),
@@ -233,11 +246,9 @@ def cmd_fit(args):
             if args.peaks:
                 from .peaks import evaluate_fit_distribution, fit_peaks
                 px = np.asarray(fit_peaks(tau_eval, gammas[i], rp))
-                pd.DataFrame({
+                _write_columns(os.path.join(args.out, f"Peaks_{stem}.csv"), {
                     "R": px[0::4], "tau0": np.exp(px[1::4]),
-                    "alpha": px[2::4], "beta": px[3::4],
-                }).to_csv(os.path.join(args.out, f"Peaks_{stem}.csv"),
-                          index=False)
+                    "alpha": px[2::4], "beta": px[3::4]})
                 row["n_peaks"] = len(px) // 4
                 g_fit = np.asarray(evaluate_fit_distribution(px, tau_eval))
                 gmax = max(float(np.abs(gammas[i]).max()), 1e-30)
@@ -247,9 +258,7 @@ def cmd_fit(args):
         print(f"bucket {bi}: {len(paths)} spectra x {len(freq)} freqs "
               f"fit in {elapsed:.2f}s ({args.mode})", file=sys.stderr)
 
-    import pandas as pd
-    pd.DataFrame(rows).to_csv(os.path.join(args.out, "summary.csv"),
-                              index=False)
+    _write_csv(os.path.join(args.out, "summary.csv"), rows)
     print(f"wrote {len(rows)} Gout_*.csv + summary.csv to {args.out}",
           file=sys.stderr)
     return 0
@@ -282,7 +291,7 @@ def _median_rel_residuals(frequencies, Z_batch, res):
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="python -m bayes_drt_tpu",
-        description="TPU-native Bayesian DRT/DDT inversion")
+        description="Batched Bayesian DRT/DDT inversion in JAX")
     sub = parser.add_subparsers(dest="command", required=True)
     _fit_parser(sub)
     args = parser.parse_args(argv)

@@ -3,7 +3,7 @@
 The reference's legacy utility module fits equivalent circuits directly to
 impedance data (reference: code_EchemActa/bayes-drt_20201113/eis_utils.py,
 ``fit_ec_model``/``fit_var_RC``). This module provides that capability on
-the TPU-native stack: circuits are composed from the elements in ``sim`` and
+the JAX stack: circuits are composed from the elements in ``sim`` and
 fit with the jitted bounded Levenberg-Marquardt (infer/lsq.py) — vmappable
 over batches of spectra.
 

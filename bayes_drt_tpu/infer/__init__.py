@@ -1,6 +1,6 @@
 # Production samplers: SHMC (bench default) and NUTS (Stan-equivalent).
-# Measured-losing arms (ChEES, fused_draws, pallas/flat-chain trajectories)
-# live behind bayes_drt_tpu.experiments with per-arm ADRs.
+# Exploratory arms (ChEES, fused_draws, the flat-chain sampler) live behind
+# bayes_drt_tpu.experiments with per-arm notes.
 from .chees import SHMCConfig, sample_shmc
 from .diagnostics import (e_bfmi, ess, ess_bulk, ess_jnp, ess_tail, rhat,
                           rhat_rank, summary)

@@ -2,16 +2,15 @@
 
 Replaces the same Stan sampling call NUTS does (reference: pystan
 ``model.sampling``, bayes_drt/inversion.py:1218-1221) but with the classic
-accelerator trade: instead of NUTS' per-leaf masked tree bookkeeping (~70%
-of device time on this posterior — measured 0.155 ms/leaf vs 0.046 ms for a
-bare leapfrog), every chain of a spectrum takes the SAME number of plain
+accelerator trade: instead of NUTS' per-leaf masked tree bookkeeping, every
+chain of a spectrum takes the SAME number of plain
 leapfrog steps per draw, and the trajectory length is *learned* during
 warmup by maximizing the Change in the Estimator of the Expected Square
 (ChEES) criterion across chains (Hoffman, Radul & Sountsov, AISTATS 2021;
 TFP's GradientBasedTrajectoryLengthAdaptation is the reference public
 implementation of the same scheme).
 
-Key structural properties that make this the TPU-native form:
+Key structural properties that make this the batch-friendly form:
 
 - the per-draw work is a single while_loop of UNMASKED leapfrog steps —
   no checkpoint stacks, no per-leaf selects, no subtree merges;
@@ -426,8 +425,8 @@ class SHMCConfig(NamedTuple):
     leaf_unroll: int = 1          # lax.scan unroll of the n_steps leapfrog
                                   # scan (XLA fuses across leaves)
     draw_unroll: int = 1          # lax.scan unroll of the draws scan
-                                  # (amortizes the ~1.5 ms/draw fixed
-                                  # overhead measured on the TPU runtime)
+                                  # (amortizes the fixed per-draw loop
+                                  # overhead)
     jitter_lo: float = 0.67       # per-draw step-size multiplier h is
                                   # halton-distributed in [jitter_lo, 1]:
                                   # trajectory TIME jitters ~1.5x while the
@@ -437,8 +436,7 @@ class SHMCConfig(NamedTuple):
                                   # RngBitGenerator stream (identical
                                   # distributions, different stream): the
                                   # per-draw (C, D) momentum refresh is
-                                  # threefry-COMPUTE bound at large D, and
-                                  # rbg is near-free on TPU
+                                  # threefry-COMPUTE bound at large D
     recompute_grad: bool = False  # don't carry the selected proposal's
                                   # (C, D) gradient through the leaf scan
                                   # (one masked select + carry per leaf);
@@ -457,21 +455,11 @@ class SHMCConfig(NamedTuple):
                                   # < 0 = NO pooling: each chain samples at
                                   # its own adapted eps (Stan semantics;
                                   # best for sharply-peaked posteriors).
-    pallas_traj: bool = False     # run each draw's whole trajectory as ONE
-                                  # fused Pallas kernel with the chain-state
-                                  # block VMEM-resident (infer/shmc_flat.py).
-                                  # Batch API only (fit_spectra_batch);
-                                  # single-series-DRT models only.
-    traj_block: int = 256         # chain rows per Pallas grid step. 256 is
-                                  # also the VMEM ceiling at the flagship
-                                  # D (~211): 512-row blocks overflow the
-                                  # 16 MB scoped-vmem budget (measured)
-    flat_chain: bool = False      # run the SAME flat (B*chains, D) chain
-                                  # layout as pallas_traj but with the XLA
-                                  # scan trajectory (infer/shmc_flat.py,
-                                  # traj_impl='xla') — isolates the layout
-                                  # effect from the kernel effect. Batch
-                                  # API only; single-series-DRT only.
+    flat_chain: bool = False      # run the whole batch as ONE flat
+                                  # (B*chains, D) chain axis with the
+                                  # hand-written posterior gradient
+                                  # (infer/shmc_flat.py). Batch API only;
+                                  # single-series-DRT only.
     traj_store: bool = False      # store-then-select trajectory form: the
                                   # leaf scan emits (q, logp, kin, w) as
                                   # stacked scan outputs and ONE Gumbel-max
@@ -487,22 +475,22 @@ class SHMCConfig(NamedTuple):
                                   # states keep integrating but carry
                                   # w = -inf so they are never selected).
     precision: str = "highest"    # matmul precision for the whole sampler
-                                  # program. 'highest' = true f32 (6 bf16 MXU
-                                  # passes) — the library default, because
-                                  # plain-bf16 gradient noise destabilizes
+                                  # program. 'highest' = true f32 — the
+                                  # library default, because reduced-
+                                  # precision gradient noise destabilizes
                                   # leapfrog integration (progcache.
-                                  # precise_matmuls). 'high' = bf16x3
-                                  # (~f32-like error at half the MXU passes)
-                                  # — opt-in; A/B quality gates before
-                                  # adopting on a new posterior.
+                                  # precise_matmuls). 'high' lets the
+                                  # backend use a cheaper f32 emulation
+                                  # (TF32 on NVIDIA GPUs) — opt-in; check
+                                  # the quality gates before adopting it.
 
 
 def _cfg_matmul_precision(fn):
     """Trace ``fn`` under ``cfg.precision`` (SHMCConfig-aware precise_matmuls).
 
-    Same rationale as progcache.precise_matmuls — TPU's default bf16 MXU
-    lowering is NOT safe for leapfrog gradients — but lets SHMCConfig
-    select 'high' (bf16x3) where its accuracy is verified adequate.
+    Same rationale as progcache.precise_matmuls — reduced-precision matmuls
+    are NOT safe for leapfrog gradients — but lets SHMCConfig select 'high'
+    where its accuracy is verified adequate.
     """
     import functools
 

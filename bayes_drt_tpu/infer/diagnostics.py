@@ -199,8 +199,8 @@ def _map_param_chunks(fn, draws, d_chunk):
     sequentially over parameter blocks with ``lax.map``. Every estimator
     here treats parameters independently, so chunking is exact; it exists
     to bound the FFT/argsort workspace — at 4 chains x 500 draws x D~211 x
-    B=1024 the all-parameters-at-once form needs several 3.3 GB HBM temps
-    and the program OOMs (measured: north-star budget, round 4)."""
+    B=1024 the all-parameters-at-once form needs several 3.3 GB device
+    temps and ran out of a 16 GB accelerator's memory."""
     import jax
     import jax.numpy as jnp
     c, n, d = draws.shape

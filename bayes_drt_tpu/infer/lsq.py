@@ -4,7 +4,7 @@ smooth bound transforms).
 Replaces scipy.optimize.least_squares in the peak-fitting path (reference:
 bayes_drt/peak_fit.py:124,191,263,308,378,456) with a jittable, vmappable
 solver — so HN peak decomposition can run batched over thousands of
-recovered distributions on TPU.
+recovered distributions on an accelerator.
 
 Bounds are enforced by smooth reparameterization:
   (lb, ub) finite  -> x = lb + (ub-lb)*sigmoid(u)

@@ -3,10 +3,11 @@
 Replaces Stan's C++ L-BFGS (reference: pystan ``model.optimizing``,
 bayes_drt/inversion.py:1216) with an optax L-BFGS + zoom line search driven
 by a lax.while_loop — jittable and vmappable over chains and spectra, so
-thousands of MAP fits run as one XLA program on a TPU. ``run_lbfgs_restarts``
+thousands of MAP fits run as one XLA program on an accelerator. ``run_lbfgs_restarts``
 exploits that: the hierarchical posterior is multimodal from random inits
 (Stan has the same fragility), so several restarts run in parallel and the
-best optimum wins — effectively free on TPU, unlike serial Stan reruns.
+best optimum wins — effectively free when batched, unlike serial Stan
+reruns.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ def run_lbfgs(loss_fn: Callable, x0, max_iter: int = 4000, tol: float = 1e-8,
     Both tolerances are floored at a multiple of the iterate dtype's
     machine eps: the f64-calibrated defaults are unreachable in float32,
     where they silently turn the while_loop into a fixed ``max_iter``-
-    iteration burn on TPU (the same f32-tolerance bug class as the box-QP
+    iteration burn (the same f32-tolerance bug class as the box-QP
     KKT tolerance).
     """
     eps = jnp.finfo(jax.tree.leaves(x0)[0].dtype).eps
@@ -97,7 +98,7 @@ def newton_polish(loss_fn: Callable, x0, max_iter: int = 100,
     """Damped (Levenberg) Newton refinement after L-BFGS.
 
     The unconstrained DRT posterior is only ~110-dimensional, so one full
-    Hessian factorization per step is trivial on TPU, and local quadratic
+    Hessian factorization per step is cheap, and local quadratic
     convergence turns a cap-bound L-BFGS iterate into a certified optimum
     (grad infinity norm <= tol — the convergence certificate pystan's
     ``model.optimizing`` reports via tol_grad; reference:
@@ -152,7 +153,7 @@ def run_lbfgs_restarts(loss_fn: Callable, init_fn: Callable, key, n_restarts: in
     parallel (vmap) and return the best optimum.
 
     The multimodality mitigation the reference gets from hand-tuned ridge
-    initialization (reference: inversion.py:1154-1160) — done the TPU way.
+    initialization (reference: inversion.py:1154-1160) — done by batching.
     """
     keys = jax.random.split(key, n_restarts)
     x0s = jax.vmap(init_fn)(keys)

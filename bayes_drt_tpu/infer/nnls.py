@@ -4,7 +4,7 @@ Replaces the reference's cvxopt cone-QP call (reference:
 bayes_drt/inversion.py:1043-1067) with a block-principal-pivoting active-set
 solver that is pure XLA: each iteration is one masked K x K linear solve, and
 the whole loop is a lax.while_loop, fully vmappable over a batch of spectra
-(the TPU win the reference cannot get from a C QP solver). Solutions are
+(the batching the reference cannot get from a C QP solver). Solutions are
 exact (machine precision) once the active set is identified — typically a
 handful of iterations — unlike first-order methods whose accuracy stalls on
 the ill-conditioned RBF normal matrices that arise here (cond ~1e7).
@@ -34,10 +34,9 @@ class QPResult(NamedTuple):
 
 
 def _spd_solve(M, rhs):
-    """Cholesky solve for a symmetric positive-definite system. On TPU a
-    batched small-matrix LU (jnp.linalg.solve) is several times slower than
-    Cholesky + two triangular solves — and every system this solver builds
-    is SPD by construction."""
+    """Cholesky solve for a symmetric positive-definite system: every
+    system this solver builds is SPD by construction, and Cholesky + two
+    triangular solves does half the work of the LU in jnp.linalg.solve."""
     chol = jnp.linalg.cholesky(M)
     y = jax.scipy.linalg.solve_triangular(chol, rhs, lower=True)
     return jax.scipy.linalg.solve_triangular(chol.T, y, lower=False)
@@ -130,8 +129,8 @@ def solve_qp_box(P, q, lb, ub, max_iter: int = 100, tol: float = 1e-10,
     scale = jnp.maximum(jnp.max(jnp.abs(q)), 1.0)
     # floor the tolerance at the dtype's resolution: the float64 default
     # (1e-10) is UNREACHABLE in float32 — the violation count then never
-    # hits zero and the loop burns its whole max_iter budget (measured on
-    # TPU: a 14-iteration solve ran 2000 iterations, 20x the wall-clock)
+    # hits zero and the loop burns its whole max_iter budget (a
+    # 14-iteration solve ran 2000 iterations)
     tol_eff = jnp.maximum(jnp.asarray(tol, dtype), 50.0 * machine)
     tol_p = tol_eff
     tol_d = tol_eff * scale

@@ -6,7 +6,7 @@ bayes_drt/inversion.py:1218-1221, control={'adapt_delta': 0.9,
 
 - fixed ``max_depth`` with a checkpoint-stack U-turn scheme so tree building
   is a shape-static lax.while_loop (jittable, vmappable over chains and
-  spectra — the TPU batching Stan's recursion cannot give)
+  spectra — the batching Stan's recursion cannot give)
 - multinomial sampling of the proposal within/between subtrees with biased
   progressive sampling (Betancourt 2017), generalized U-turn criterion on
   velocity/momentum sums
@@ -72,8 +72,7 @@ class NUTSConfig(NamedTuple):
                                   # vmapped while_loop already runs to the
                                   # batch-max trip count but pays a per-
                                   # iteration sync/dispatch cost that scan
-                                  # pipelines away (measured ~2x on the
-                                  # saturated-tree DRT bench); prefer the
+                                  # pipelines away; prefer the
                                   # while_loop for single chains with short
                                   # trajectories. Implies flat_tree.
     scan_unroll: int = 1          # leaves inlined per tree_scan iteration
@@ -826,7 +825,7 @@ def sample_nuts(logp_fn: Callable, q0, key, warmup: int = 200,
     vector or a (D, D) covariance (pass ``(m_inv, cholesky(m_inv))`` for
     dense). With ``cfg.adapt_mass=False`` it stays fixed and only the step
     size adapts; closing a SHARED metric over a vmapped call keeps it
-    unbatched (one matrix for the whole batch → MXU matmuls, no per-element
+    unbatched (one matrix for the whole batch → plain matmuls, no per-element
     metric traffic).
     """
     value_and_grad = jax.value_and_grad(logp_fn)
@@ -857,8 +856,8 @@ def sample_nuts(logp_fn: Callable, q0, key, warmup: int = 200,
     if cfg.fused_draws:
         import warnings
         warnings.warn(
-            "NUTSConfig(fused_draws=True) is measured ~1.8x SLOWER than "
-            "flat_tree/tree_scan at equal draws on TPU, compiles very "
+            "NUTSConfig(fused_draws=True) was measured SLOWER than "
+            "flat_tree/tree_scan at equal draws, compiles very "
             "slowly, and can exhaust device memory at large batch sizes; "
             "it is kept only for API/algorithm completeness. Use "
             "tree_scan=True instead.", stacklevel=2)

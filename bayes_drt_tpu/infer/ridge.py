@@ -13,7 +13,7 @@ bayes_drt/inversion.py:142-1067) as pure, jittable functions:
 All matrix augmentation (R_inf / inductance columns for series
 distributions) happens at the API layer; these functions see the final
 (N, K) design matrices. Everything here is vmappable over a batch of
-spectra — the TPU replacement for the reference's one-QP-at-a-time cvxopt
+spectra — the batched replacement for the reference's one-QP-at-a-time cvxopt
 loop.
 """
 

@@ -1,29 +1,27 @@
-"""Flat-chain SHMC with a fused Pallas trajectory kernel.
+"""Flat-chain SHMC with a hand-written posterior gradient.
 
-The production SHMC path (infer/chees.py:sample_shmc) is HBM-bound: every
-leapfrog of the vmapped leaf scan round-trips the full (B*C, D) chain state
-(position, momentum, gradient, proposal bookkeeping) plus elementwise
-intermediates through HBM, while the useful FLOPs (four skinny matvecs and
-their adjoints per leaf) are a few percent of MXU peak. This module is the
-TPU-native answer: flatten the batch to one (B*C, D) chain axis and run each
-draw's ENTIRE n-leapfrog trajectory as one Pallas kernel that keeps the
-chain-state block resident in VMEM — HBM sees one read of (q, p, grad) and
-one write of the selected proposal per draw instead of per leaf.
+The generic SHMC path (infer/chees.py:sample_shmc) vmaps a per-spectrum
+sampler over the batch and differentiates models/posterior.py with
+``jax.grad``. This module runs the same sampler over ONE flat
+(B*chains, D) chain axis, with the log posterior's value and gradient
+written out by hand, so each leapfrog is a few batched matrix products and
+elementwise passes over that axis.
 
-Because a Pallas kernel cannot call back into ``jax.grad``, the kernel needs
-the posterior's value-and-gradient written out by hand. That is tractable
-exactly for the flagship workload (the bench posterior): a single series
-distribution, no outliers, not fitY — the Stan ``Series``/``Series_pos``
-model (reference: bayes_drt/stan_model_files/Series_modelcode.txt, sampled
-by inversion.py:1218-1221), in centered or non-centered (ncp) coordinates.
-The hand-written form also exposes an algebraic simplification the generic
-path can't use: the Stan model's ``q ~ normal(0, ups)`` soft prior on
+The hand-written form is tractable exactly for the flagship workload (the
+bench posterior): a single series distribution, no outliers, not fitY — the
+Stan ``Series``/``Series_pos`` model (reference:
+bayes_drt/stan_model_files/Series_modelcode.txt, sampled by
+inversion.py:1218-1221), in centered or non-centered (ncp) coordinates. It
+also exposes an algebraic simplification the generic path can't use: the
+Stan model's ``q ~ normal(0, ups)`` soft prior on
 ``q = sqrt(sum_k ds_k (L_k x)^2)`` needs no square root at all — only
 ``q^2`` enters the density — so the gradient has no 1/sqrt term.
 
-``flat_value_and_grad`` is pure jnp and runs identically in three contexts:
-unit tests against ``jax.value_and_grad`` of models/posterior.py, the XLA
-reference trajectory (``traj_impl='xla'``), and inside the Pallas kernel.
+``flat_value_and_grad`` is pure jnp: the unit tests check it against
+``jax.value_and_grad`` of models/posterior.py, which makes it the one
+from-first-principles check of the posterior gradient. It is also the
+starting point for a fused trajectory kernel, since a kernel cannot call
+back into ``jax.grad``.
 """
 
 from __future__ import annotations
@@ -74,7 +72,7 @@ def flat_spec_for(cfg, data) -> FlatSpec:
     if (len(cfg.dists) != 1 or cfg.dists[0].dist_type != "series"
             or cfg.outliers or cfg.fitY or cfg.sa):
         raise ValueError(
-            "the fused Pallas trajectory supports the single series-"
+            "the flat-chain sampler supports the single series-"
             f"distribution model family only (got {cfg.model_name()}); "
             "use the generic sampler for this model")
     template = init_unconstrained(cfg, data, jax.random.PRNGKey(0))
@@ -329,20 +327,15 @@ def _leaf_step(spec, A, L, vecs, scal, m_inv, epsc, q_init, p_init, g_init,
 
     Identical math to the per-spectrum leaf in infer/chees.py:sample_shmc
     (backward leg with flipped momentum until i == j, then the forward leg;
-    divergent legs freeze and are never selected). Written over plain values
-    so the XLA scan reference and the Pallas kernel share one implementation.
-
-    Mosaic-friendly state discipline: every per-row scalar is a (R, 1)
-    column and the freeze/divergence flags are {0, 1} float masks — Mosaic
-    cannot reshape/insert minor dims on 1-bit vectors, and 1-D loop carries
-    trip layout checks.
+    divergent legs freeze and are never selected). Written over plain
+    values, with every per-row scalar a (R, 1) column and the
+    freeze/divergence flags {0, 1} float masks, so a kernel can reuse it.
     """
     (qq, pp, gg, lp, logw, pq, plp, pgq, pkin, sacc, dead, ever) = st
     dt = qq.dtype
 
     def sel(mask_col, a, b):
-        # mask_col: (R, 1) float in {0, 1}; full-shape select (broadcasting
-        # an (R, 1) i1 against (R, D) is the pattern that crashes Mosaic)
+        # mask_col: (R, 1) float in {0, 1}; full-shape select
         m = jnp.broadcast_to(mask_col, a.shape) > 0.5
         return jnp.where(m, a, b)
 
@@ -390,7 +383,7 @@ def _traj_init_state(q, p0, grad, lp_col, kin0, dtype):
 
 def _traj_xla(spec, n_leap, max_e, shared, q, p0, grad, logp, eps,
               m_inv_rows, targets, j, u_sel, unroll=1):
-    """Reference trajectory: lax.scan over leaves (state through HBM)."""
+    """The trajectory: lax.scan over leaves."""
     A, L, vecs, scal = shared.A, shared.L, shared.vecs, shared.scal
     kin0 = 0.5 * jnp.sum(p0 * p0 * m_inv_rows, axis=1, keepdims=True)
     lp_col = logp[:, None]
@@ -411,95 +404,6 @@ def _traj_xla(spec, n_leap, max_e, shared, q, p0, grad, logp, eps,
     return pq, plp[:, 0], pgq, pkin[:, 0], sacc[:, 0], ever[:, 0] > 0.5
 
 
-def _traj_pallas(spec, n_leap, max_e, block_rows, interpret, shared,
-                 q, p0, grad, logp, eps, m_inv_rows, targets, j, u_sel):
-    """The fused trajectory: one kernel per draw, chain state in VMEM."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    A, L, vecs, scal = shared.A, shared.L, shared.vecs, shared.scal
-    rt, D = q.shape
-    n2 = 2 * spec.n
-    dtype = q.dtype
-    blk = min(block_rows, rt)
-    while rt % blk:
-        blk //= 2
-    grid = (rt // blk,)
-
-    def kernel(j_ref, scal_ref, q_ref, p0_ref, g_ref, rs_ref, minv_ref,
-               tgt_ref, usel_ref, A_ref, L_ref, vec_ref,
-               qo_ref, go_ref, rso_ref):
-        jj = j_ref[0, 0]
-        # SMEM permits scalar loads only; flat_value_and_grad just indexes
-        # scal[k], so a tuple of scalars is a drop-in
-        sc = tuple(scal_ref[0, k] for k in range(8))
-        Ak = A_ref[:]
-        # tuples of 2-D loads (a 3-D value + static indexing stresses
-        # Mosaic layouts for nothing)
-        Lk = (L_ref[0], L_ref[1], L_ref[2])
-        vk = (vec_ref[0, :], vec_ref[1, :], vec_ref[2, :])
-        q0 = q_ref[:]
-        p0k = p0_ref[:]
-        g0 = g_ref[:]
-        lp0 = rs_ref[:, 0:1]
-        epsc = rs_ref[:, 1:2]
-        m_inv = minv_ref[:]
-        tgt = tgt_ref[:]
-        kin0 = 0.5 * jnp.sum(p0k * p0k * m_inv, axis=1, keepdims=True)
-        H0 = -lp0 + kin0
-
-        def body(i, st):
-            # dynamic index on the SUBLANE dim (row) is cheap; the minor-dim
-            # insert is on a 32-bit vector, which Mosaic supports
-            u = usel_ref[i, :][:, None]
-            return _leaf_step(spec, Ak, Lk, vk, sc, m_inv, epsc, q0, p0k,
-                              g0, lp0, H0, jj, tgt, max_e, i, u, st)
-
-        st0 = _traj_init_state(q0, p0k, g0, lp0, kin0, dtype)
-        st = jax.lax.fori_loop(0, n_leap, body, st0)
-        (_, _, _, _, _, pq, plp, pgq, pkin, sacc, _, ever) = st
-        qo_ref[:] = pq
-        go_ref[:] = pgq
-        pad = jnp.zeros((pq.shape[0], 4), dtype)
-        rso_ref[:] = jnp.concatenate([plp, pkin, sacc, ever, pad], axis=1)
-
-    rs = jnp.stack([logp, eps], axis=1)
-    j_arr = jnp.asarray(j, jnp.int32).reshape(1, 1)
-    scal8 = scal.reshape(1, 8)
-    out_shape = (jax.ShapeDtypeStruct((rt, D), dtype),
-                 jax.ShapeDtypeStruct((rt, D), dtype),
-                 jax.ShapeDtypeStruct((rt, 8), dtype))
-    row_spec = pl.BlockSpec((blk, D), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-    qo, go, rso = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 8), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            row_spec, row_spec, row_spec,
-            pl.BlockSpec((blk, 2), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            row_spec,
-            pl.BlockSpec((blk, n2), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_leap, blk), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n2, spec.K), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, spec.K, spec.K), lambda i: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, n2), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=(row_spec, row_spec,
-                   pl.BlockSpec((blk, 8), lambda i: (i, 0),
-                                memory_space=pltpu.VMEM)),
-        out_shape=out_shape,
-        interpret=interpret,
-    )(j_arr, scal8, q, p0, grad, rs, m_inv_rows, targets, u_sel, A, L, vecs)
-    return (qo, rso[:, 0], go, rso[:, 1], rso[:, 2],
-            rso[:, 3] > 0.5)
-
-
 # ===================== sampler =====================
 
 def _pool_eps_rows(eps_bc, cfg):
@@ -512,16 +416,14 @@ def _pool_eps_rows(eps_bc, cfg):
 
 
 @partial(jax.jit, static_argnames=("spec", "warmup", "samples", "cfg",
-                                   "chains", "traj_impl", "interpret"))
+                                   "chains"))
 def sample_shmc_flat(spec: FlatSpec, shared: FlatShared, targets, q0, key,
                      warmup: int, samples: int, cfg, chains: int,
-                     init_step_size: float = 1.0, traj_impl: str = "pallas",
-                     interpret: bool = False):
+                     init_step_size: float = 1.0):
     """Synchronous static multinomial HMC over ONE flat chain axis.
 
     The whole batch — B spectra x ``chains`` chains — runs as (B*chains, D)
-    rows through a single trajectory launch per draw (the Pallas kernel, or
-    an XLA scan reference with identical math via ``traj_impl='xla'``).
+    rows through one lax.scan trajectory per draw.
     Adaptation matches infer/chees.py:sample_shmc: per-ROW dual averaging,
     Welford pooled within-chain then averaged per SPECTRUM into that
     spectrum's shared diagonal metric, and a per-spectrum pooled sampling
@@ -541,7 +443,6 @@ def sample_shmc_flat(spec: FlatSpec, shared: FlatShared, targets, q0, key,
     n_leap_s = cfg.n_steps
     n_leap_w = cfg.warm_steps or cfg.n_steps
     max_e = cfg.max_energy_error
-    block = getattr(cfg, "traj_block", 256)
 
     def vg(q2, t2):
         return flat_value_and_grad(spec, shared.A, shared.L, shared.vecs,
@@ -590,10 +491,6 @@ def sample_shmc_flat(spec: FlatSpec, shared: FlatShared, targets, q0, key,
 
     def make_step(n_leap, adapting=True, eps_fixed=None):
         def traj(sh, q, p0, grad, logp, eps, m_inv_rows, tgt, j, u_sel):
-            if traj_impl == "pallas":
-                return _traj_pallas(spec, n_leap, max_e, block, interpret,
-                                    sh, q, p0, grad, logp, eps, m_inv_rows,
-                                    tgt, j, u_sel)
             return _traj_xla(spec, n_leap, max_e, sh, q, p0, grad, logp,
                              eps, m_inv_rows, tgt, j, u_sel,
                              unroll=cfg.leaf_unroll)

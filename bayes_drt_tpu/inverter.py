@@ -1,8 +1,8 @@
 """Inverter: the user-facing API, mirroring the reference's surface
-(reference: bayes_drt/inversion.py class Inverter) on top of the TPU-native
+(reference: bayes_drt/inversion.py class Inverter) on top of the batched
 JAX engine.
 
-Host code (numpy/pandas) orchestrates; all numerics run through the jitted
+Host code (numpy) orchestrates; all numerics run through the jitted
 kernels in ops/ (matrix construction), infer/ (QP, ridge, L-BFGS, NUTS), and
 models/ (the hierarchical posterior).
 """
@@ -688,10 +688,10 @@ class Inverter:
 
         ``sampler`` (sample mode): 'nuts' (default, Stan-equivalent),
         'shmc' (synchronous static multinomial HMC — the fully
-        batch-synchronous TPU form, same posterior; configure via
+        batch-synchronous form, same posterior; configure via
         ``shmc_cfg``), or 'chees' (EXPERIMENTAL: adaptive jittered HMC,
         ``chees_cfg``; measured weaker than nuts/shmc on the funnel-shaped
-        DRT posterior — ADR in bayes_drt_tpu/experiments/__init__.py).
+        DRT posterior — notes in bayes_drt_tpu/experiments/__init__.py).
 
         Escape hatches (the reference's ``add_stan_data``/``model_str``,
         inversion.py:1143-1147):

@@ -302,10 +302,8 @@ def log_density(cfg: PosteriorConfig, data: PosteriorData, params: dict,
         ups_raw = jnp.exp(params[f"ups_raw_{i}"])
         lp = lp + inv_gamma_lpdf(ups_raw, data.ups_alpha, data.ups_beta)
         x_raw = c[f"x_raw_{i}"]
-        # NOTE: a stacked [A; L0; L1; L2] @ x_raw single-GEMM variant was
-        # measured ~5% SLOWER on the TPU bench than these four separate
-        # matvecs (XLA schedules the well-shaped (lanes, K) @ (K, K/2N)
-        # GEMMs better than one tall concat) — keep them separate.
+        # NOTE: a stacked [A; L0; L1; L2] @ x_raw single-GEMM variant is
+        # an untested alternative to these four separate matvecs.
         L = data.L[i]
         q = jnp.sqrt(ds[0] * (L[0] @ x_raw)**2 + ds[1] * (L[1] @ x_raw)**2
                      + ds[2] * (L[2] @ x_raw)**2)

@@ -3,8 +3,8 @@
 ``load_spectra(paths)`` parses CSV/Gamry files through the C++ loader
 (built on first use with g++) and buckets them by frequency grid so each
 bucket feeds fit_spectra_batch directly — the ragged-grid batching strategy
-from SURVEY.md. Falls back to the pandas parsers in io/ if no C++ toolchain
-is available.
+from SURVEY.md. Falls back to numpy parsing (CSV) or the io/ parsers
+(Gamry .DTA, which need pandas) if no C++ toolchain is available.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ def _ensure_built():
                 check=True, capture_output=True)
         except (subprocess.CalledProcessError, FileNotFoundError) as exc:
             warnings.warn(f"native loader build failed ({exc}); falling back "
-                          "to the pandas parsers")
+                          "to the Python parsers")
             _build_failed = True
             return None
     lib = ctypes.CDLL(_LIB)
@@ -75,12 +75,12 @@ def _looks_gamry(path) -> bool:
 
 
 def _load_one_fallback(path):
-    from ..io.file_load import get_fZ, read_eis
-    import pandas as pd
     if _looks_gamry(path):
+        from ..io.file_load import get_fZ, read_eis
         return get_fZ(read_eis(path, warn=False))
-    df = pd.read_csv(path)
-    return df["Freq"].values, df["Zreal"].values + 1j * df["Zimag"].values
+    data = np.genfromtxt(path, delimiter=",", names=True, ndmin=1)
+    return (np.asarray(data["Freq"], float),
+            data["Zreal"] + 1j * data["Zimag"])
 
 
 def load_eis_file(path):

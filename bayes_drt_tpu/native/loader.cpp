@@ -2,7 +2,7 @@
 //
 // The reference loads spectra one pandas.read_csv at a time in a Python loop
 // (reference: code_EchemActa/"Run fits.ipynb" batch cells). Feeding the
-// TPU batch API with thousands of spectra makes parsing a measurable cost;
+// batch API with thousands of spectra makes parsing a measurable cost;
 // this loader parses the standard simulated-data CSV layout
 // (header "...Freq,Zreal,Zimag,..." with arbitrary extra columns) and Gamry
 // ZCURVE tables with a single pass per file, no Python object churn.

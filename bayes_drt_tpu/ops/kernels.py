@@ -5,7 +5,7 @@ The reference defines these as scalar closures fed to scipy quadrature
 functions evaluated on broadcast (N, K, Q) grids so the quadrature becomes a
 single fused XLA contraction. Numerically-sensitive forms (sech, small-|x|
 diffusion impedances) use stable rewrites/series so the kernels stay accurate
-in float32 on TPU, not just float64.
+in float32 on an accelerator, not just float64.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ def drt_imag_kernel(y, s):
 # ---------------------------------------------------------------------------
 # Diffusion impedances Z_D(x), x = sqrt(tau e^y (k_ct + j w)) (or sqrt(j w tau e^y))
 # (reference: matrices.py:59-94). Small-|x| forms use series in z = x^2 to avoid
-# catastrophic cancellation (important for float32 TPU evaluation).
+# catastrophic cancellation (important for float32 evaluation).
 # ---------------------------------------------------------------------------
 
 _SMALL_Z = 0.03

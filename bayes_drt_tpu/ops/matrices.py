@@ -3,7 +3,7 @@ penalty) matrices as vectorized XLA ops.
 
 The reference builds these with per-entry scipy quadrature plus a Toeplitz
 shortcut for log-uniform grids (reference: bayes_drt/matrices.py:120-265).
-On TPU the entire (N, K, Q) integrand tensor is evaluated in one fused
+Here the entire (N, K, Q) integrand tensor is evaluated in one fused
 broadcast and contracted with trapezoid weights via a single matvec-like
 reduction — no Toeplitz special-casing needed, and the same code path is
 vmappable over batches of spectra.

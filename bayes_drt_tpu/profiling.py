@@ -3,7 +3,7 @@
 The reference has no tracing beyond ad-hoc notebook timers (SURVEY.md
 section 5). Here every fit can report per-stage wall-clock and the sampler
 reports ESS/sec (the headline benchmark metric), and a jax.profiler trace
-can wrap any stage for TPU timeline inspection.
+can wrap any stage for device timeline inspection.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ class StageTimer:
 
 @contextlib.contextmanager
 def trace(log_dir: Optional[str] = None):
-    """Optional jax.profiler trace around a stage (TPU timeline).
+    """Optional jax.profiler trace around a stage (device timeline).
 
     No-op when log_dir is None.
     """

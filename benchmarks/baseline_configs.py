@@ -1,4 +1,4 @@
-"""TPU numbers for BASELINE configs 1-5: ordinary ridge, hyper-lambda
+"""Accelerator numbers for BASELINE configs 1-5: ordinary ridge, hyper-lambda
 ridge, MAP (L-BFGS), HMC with the outlier error model, and DDT HMC —
 batched at B=512 (B=256 for the multi-matrix DDT workload).
 
@@ -27,8 +27,8 @@ REPEATS = 3
 
 def main():
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_compile_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+    from bayes_drt_tpu.progcache import enable_compile_cache
+    enable_compile_cache()
     from bayes_drt_tpu import sim
     from bayes_drt_tpu.parallel import (evaluate_gamma, fit_spectra_batch,
                                         ridge_fit_spectra_batch)

@@ -1,4 +1,4 @@
-"""Drift-fleet throughput: batched vs serial time-evolving MAP fits on TPU.
+"""Drift-fleet throughput: batched vs serial time-evolving MAP fits.
 
 Workload: B cells measured on one three-sweep schedule (93 points each),
 each drifting by a growing ZARC with per-cell magnitude/time-constant, fit
@@ -8,7 +8,7 @@ the serial `Inverter.drift_map_fit` loop it replaces (measured on one cell
 and extrapolated — the reference has no batch drift path at all; its
 analogue is re-running the per-spectrum workflow).
 
-Run serially on the TPU (no concurrent python jobs), best-of-N repeats
+Run alone on the accelerator (no concurrent python jobs), best-of-N repeats
 after a priming call, same protocol as benchmarks/baseline_configs.py.
 """
 
@@ -41,8 +41,8 @@ def make_fleet(b, seed=0):
 
 def main():
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_compile_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+    from bayes_drt_tpu.progcache import enable_compile_cache
+    enable_compile_cache()
     from bayes_drt_tpu import Inverter
     from bayes_drt_tpu.parallel import drift_fit_spectra_batch
 

@@ -1,4 +1,4 @@
-"""TPU throughput of fit_spectra_ragged — heterogeneous frequency grids.
+"""Accelerator throughput of fit_spectra_ragged — heterogeneous frequency grids.
 
 The realistic production shape (SURVEY.md section 7 'vmapped heterogeneity'):
 a fleet of spectra measured on DIFFERENT grids (different ppd, different
@@ -6,8 +6,8 @@ ranges, different lengths), all fit in ONE padded/masked XLA program. This
 measures what a batch service pays for the padding + per-spectrum A-matrix
 stacks relative to the uniform-grid fast path.
 
-Protocol (CLAUDE.md): back-to-back in one process, warm run first, best of
-three timed runs. Run on the TPU:
+Protocol: back-to-back in one process, warm run first, best of three timed
+runs. Run on the accelerator:
 
     python benchmarks/bench_ragged.py [B]
 """
@@ -43,8 +43,8 @@ def make_ragged_fleet(B, seed=0):
 
 def main():
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_compile_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+    from bayes_drt_tpu.progcache import enable_compile_cache
+    enable_compile_cache()
 
     from bayes_drt_tpu.infer.chees import SHMCConfig
     from bayes_drt_tpu.parallel import fit_spectra_ragged

@@ -23,14 +23,14 @@ Usage: python benchmarks/paper_batch.py [--modes map hmc]
 
 Remedy arms for the sharply-peaked (delta-like) 2RC family, whose
 posterior has a slow mixing direction needing 4-8x the production
-trajectory (see benchmarks/probe_2rc.py):
+trajectory (see benchmarks/probe_2rc.py). An earlier run, whose record is
+gone, found:
   --circuits 2RC --warmup 500 --samples 500 --sampler nuts
-    -> results/paper_batch_hmc_2rc_nuts.csv: 10/10 PASS (0.012-0.082 Rp)
+    -> 10/10 PASS (0.012-0.082 Rp)
   --circuits 2RC --warmup 500 --samples 500 --n-steps 128
-    -> results/paper_batch_hmc_2rc_n128.csv: 8/10 at the production
-       bf16x3 precision (f32 passes all three gated 0.25 cells — bf16x3
-       costs ~0.01-0.02 Rp at the margin on this unusually sharp
-       posterior).
+    -> 8/10 at reduced matmul precision (f32 passed all three gated 0.25
+       cells — reduced precision cost ~0.01-0.02 Rp at the margin on this
+       unusually sharp posterior).
 """
 
 import argparse
@@ -209,7 +209,7 @@ def run_group(cases, mode, chains=4, warmup=150, samples=250, n_steps=32,
             row["divergence_rate"] = float(
                 res.diagnostics["divergence_rate"][i])
             for k in ("ess_bulk_min", "rank_rhat_max", "min_ess",
-                      "bf16x3_grad_err", "metric_lambda_max"):
+                      "high_grad_err", "metric_lambda_max"):
                 if k in res.diagnostics:
                     row[k] = float(np.asarray(res.diagnostics[k])[i])
             # trajectory-length-vs-posterior-scale calibration signals:
@@ -247,7 +247,7 @@ def main():
                     help="NUTS cap; Stan's default is 10")
     ap.add_argument("--precision", default="high",
                     choices=["high", "highest"],
-                    help="SHMC matmul precision (bf16x3 vs true f32)")
+                    help="SHMC matmul precision (high = reduced, highest = true f32)")
     ap.add_argument("--escalate", action="store_true",
                     help="let fit_spectra_batch's DEFAULT mixing-gate "
                          "escalation run (off pins escalate=False so the "
@@ -256,8 +256,8 @@ def main():
     args = ap.parse_args()
 
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_compile_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+    from bayes_drt_tpu.progcache import enable_compile_cache
+    enable_compile_cache()
 
     cases = load_cases()
     if args.circuits:

@@ -1,6 +1,6 @@
 """Localize the 2RC_*_0.25 paper-batch HMC outliers.
 
-The full-budget sweep (results/paper_batch_hmc_full.csv) leaves exactly
+The full-budget sweep (paper_batch.py, an earlier run) left exactly
 three FAILs: 2RC (double-delta DRT) at 0.25 noise under all three noise
 models, agreement-with-Stan RMSE 0.105-0.115 vs the 0.10*Rp heuristic,
 improving monotonically with noise. MAP on the same spectra agrees with
@@ -9,7 +9,7 @@ the posterior MEAN differs. This probe reruns the whole 2RC family (all 10
 noise cells, one batched program) at the full 4x(500+500) budget under
 three sampler arms to separate the candidate causes:
 
-  prod-f32 : shmc + ncp + eps_q0.5, precision='highest'  -> isolates bf16x3
+  prod-f32 : shmc + ncp + eps_q0.5, precision='highest'  -> isolates 'high'
   nuts-ncp : NUTS md8 + ncp, precision='highest'         -> isolates SHMC
   nuts-cen : NUTS md8, CENTERED, precision='highest'     -> strict Stan-
              coordinate parity (same coordinates Stan samples in)
@@ -20,7 +20,7 @@ stack; any arm that pulls the number under 0.10 indicts the knobs that arm
 removed. Reference anchor: code_EchemActa/bayes_results/Gout_2RC_*.csv
 (Stan 4x1000, Run fits.ipynb).
 
-CONCLUSION (results/probe_2rc_*.csv, 7 arms): TRAJECTORY LENGTH.
+CONCLUSION (an earlier run, 7 arms): TRAJECTORY LENGTH.
 Both NUTS arms pass every gated cell (0.053-0.078 on the 0.25 cells), so
 the "smoothing difference" explanation was wrong. rmse_vs_ref is monotone
 in leapfrogs/draw: n32 0.105-0.107, n64 0.096-0.109, n128 0.083-0.093
@@ -62,8 +62,8 @@ def main():
     args = ap.parse_args()
 
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_compile_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+    from bayes_drt_tpu.progcache import enable_compile_cache
+    enable_compile_cache()
 
     from bayes_drt_tpu.infer.chees import SHMCConfig
     from bayes_drt_tpu.parallel import evaluate_gamma as eg

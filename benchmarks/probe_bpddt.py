@@ -18,7 +18,7 @@ Per cell and arm: logp split-Rhat, z_dev vs committed Zout, and the
 PER-CHAIN mean Rinf over the last 50 retained draws (monitor_draws) —
 stuck chains show up as one chain at Rinf ~ 100-600 vs ~0 for the rest.
 
-Writes results/probe_bpddt.csv.
+Writes benchmarks/results/probe_bpddt.csv.
 """
 
 import os
@@ -50,8 +50,8 @@ def main():
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_compile_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+    from bayes_drt_tpu.progcache import enable_compile_cache
+    enable_compile_cache()
 
     from bayes_drt_tpu.parallel import fit_spectra_batch, predict_Z_batch
 

@@ -1,18 +1,17 @@
 """Capture a jax.profiler device trace of the production sampling step and
-attribute the per-draw cost (VERDICT r4 #4: settle the cost model with
-device counters instead of wall-clock inference).
+attribute the per-draw cost (settle the cost model with device counters
+instead of wall-clock inference).
 
 Two artifacts:
 1. A jax.profiler trace of ONE timed production fit (B spectra, the bench
    config) under benchmarks/results/trace_r5/ — open with TensorBoard or
-   xprof; the trace_viewer timeline attributes HBM/MXU/overhead per op.
+   xprof; the trace_viewer timeline attributes device time per op.
 2. A stdout cost decomposition from op-level self-times (the
-   device_stats summary the profiler embeds), committed alongside as
-   results/profile_draw_r5.txt for the repo record.
+   device_stats summary the profiler embeds), written to
+   benchmarks/results/profile_draw_r5.txt.
 
-Also reconciles the round-3 sweep_warmup2-vs-sweep_batch contradiction by
-timing the SAME program at B=512/1024 back-to-back in one process with the
-profiler OFF (drift-free relative scaling), then profiling the B=1024 run.
+Also times the SAME program at B=512/1024 back-to-back in one process with
+the profiler OFF (relative scaling), then profiles the B=1024 run.
 
 Usage: python benchmarks/profile_draw.py [--b 1024] [--profile-b 1024]
 """
@@ -57,8 +56,8 @@ def main():
     args = ap.parse_args()
 
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_compile_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+    from bayes_drt_tpu.progcache import enable_compile_cache
+    enable_compile_cache()
 
     total_draws = args.warmup + args.samples
 
@@ -95,7 +94,7 @@ def main():
           flush=True)
 
     out = [f"B-scaling (one process, best-of-3, {args.warmup}+{args.samples}"
-           f" draws x 4 chains, shmc n32 bf16x3):",
+           f" draws x 4 chains, shmc n32):",
            scaling.to_string(index=False), "",
            f"profiled run at B={args.profile_b}: {el:.2f}s "
            f"({1e3 * el / total_draws:.2f} ms/draw)",

@@ -7,9 +7,7 @@ transmissive-planar DDT (mass transport). One fit recovers BOTH
 distributions, with credible bands from HMC.
 
 Shows the single-spectrum `Inverter` path and the batched
-`fit_spectra_batch(distributions=...)` path (the production form — the
-same workload runs at ~6 ms/spectrum on one TPU v5e chip, see
-docs/PERFORMANCE.md).
+`fit_spectra_batch(distributions=...)` path (the production form).
 
 Run: python examples/08_multidistribution.py
 """

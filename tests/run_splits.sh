@@ -5,9 +5,9 @@
 set -u
 cd "$(dirname "$0")/.."
 
-SPLIT_A="tests/test_cli.py tests/test_diagnostics.py tests/test_drift.py tests/test_ecm.py tests/test_fit_variants.py tests/test_inverter.py tests/test_io.py tests/test_matrices.py tests/test_ncp.py tests/test_nnls.py tests/test_nuts.py tests/test_nuts_drt.py"
+SPLIT_A="tests/test_bring_up.py tests/test_cli.py tests/test_diagnostics.py tests/test_drift.py tests/test_ecm.py tests/test_fit_variants.py tests/test_inverter.py tests/test_io.py tests/test_matrices.py tests/test_ncp.py tests/test_nnls.py tests/test_nuts.py tests/test_nuts_drt.py"
 SPLIT_M="tests/test_multidist.py"
-SPLIT_B1="tests/test_outlier_cv.py tests/test_pallas_quad.py tests/test_parallel.py tests/test_peaks.py tests/test_phase_offset.py tests/test_posterior_map.py tests/test_posterior_multidist.py tests/test_ridge.py"
+SPLIT_B1="tests/test_outlier_cv.py tests/test_parallel.py tests/test_peaks.py tests/test_phase_offset.py tests/test_posterior_map.py tests/test_posterior_multidist.py tests/test_ridge.py"
 SPLIT_B2="tests/test_reference_regression.py tests/test_ridge_options.py tests/test_round3.py tests/test_round4.py tests/test_round5.py tests/test_shmc_flat.py tests/test_sim.py tests/test_viz_persist.py tests/test_native_loader.py"
 
 rc=0

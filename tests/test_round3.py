@@ -129,8 +129,8 @@ def test_shmc_precision_knob():
     program is traced under. On the CPU backend every precision lowers to
     the same f64/f32 dot, so 'high' must be bit-identical to the 'highest'
     default — this pins the knob's plumbing (cfg-aware wrapper, program
-    cache keying), while the TPU A/B (benchmarks/ab_precision.py) measures
-    its effect where bf16x3 vs 6-pass-f32 actually differ."""
+    cache keying), while an accelerator A/B (benchmarks/precision_gates.py)
+    measures its effect where the two precisions actually differ."""
     cov, logp = _gaussian_target()
     d = cov.shape[0]
     key = jax.random.PRNGKey(7)
@@ -612,7 +612,7 @@ def test_batch_ridge_f32_real_instrument_spectrum():
     """Regression: the PDAC ZPlot spectrum (|Z| spanning 1.4e3..1e7 ohms)
     NaN'd the f32 batch ridge outright — cond(P) ~6e13 before the QP's
     Jacobi equilibration existed. Must stay finite and converged in f32
-    (the TPU serving dtype)."""
+    (the accelerator serving dtype)."""
     import jax.numpy as jnp
     from bayes_drt_tpu.native import load_eis_file
     freq, Z = load_eis_file(

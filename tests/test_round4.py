@@ -167,8 +167,8 @@ def test_sbc_generate_and_rank_machinery(small_model):
 def test_sbc_end_to_end_small(small_model):
     """Machinery end-to-end on CPU: prior draws -> datasets -> production
     batched fit (z_scale=1, monitor_thin) -> ranks. Uniformity is asserted
-    only loosely (budget is tiny); the real certification runs on TPU
-    (benchmarks/sbc.py)."""
+    only loosely (budget is tiny); the real certification runs on an
+    accelerator (benchmarks/sbc.py)."""
     frequencies, tau, eps, cfg, data = small_model
     n_sets = 8
     ups_raw, ds, diag = sbc.sample_prior_marginal(cfg, data, n_sets, seed=2,

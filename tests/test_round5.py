@@ -237,9 +237,9 @@ def test_escalation_mask_thresholds():
          "logp_rhat": np.array([1.0, 1.0, 1.0])}
     assert escalation_mask(d, 3, ess_bulk_min=2.0).tolist() == [
         True, False, False]
-    d["bf16x3_grad_err"] = np.array([0.0, 1e-3, 0.0])
+    d["high_grad_err"] = np.array([0.0, 1e-3, 0.0])
     assert escalation_mask(d, 3, ess_bulk_min=2.0,
-                           bf16x3_tol=2e-4).tolist() == [True, True, False]
+                           high_tol=2e-4).tolist() == [True, True, False]
     # chains at different density levels (the posterior-predictive-Z
     # failure class) and the metric-normalized slow-direction detector
     d2 = {"ess_bulk_min": np.array([5.0, 5.0, 5.0]),
